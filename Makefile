@@ -11,7 +11,7 @@ test:
 bench:
 	$(PY) bench.py
 
-# the full benchmark suite (CPU-safe; scaling numbers are meaningful on TPU)
+# the full benchmark suite (CPU-safe; scaling numbers are meaningful on GPUs)
 benchmarks:
 	cd benchmarks && $(PY) benchmark_branin.py
 	cd benchmarks && $(PY) benchmark_rosenbrock.py

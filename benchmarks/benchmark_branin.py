@@ -1,6 +1,6 @@
 """Multi-output convergence benchmark: 8 Branin-like realizations.
 
-TPU-native analogue of the reference ``benchmarks/benchmark_branin.py``:
+Analogue of the reference ``benchmarks/benchmark_branin.py``:
 fits a MultiOutputGP to 8 randomized Branin-variant surfaces at
 increasing design sizes and verifies that held-out RMSE and mean
 predictive variance fall with n -- the convergence property the

@@ -19,7 +19,9 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("MOGP_TPU_COMPILE_CACHE", "/root/repo/.jax_cache")
+from mogp_tpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import mogp_tpu
 from mogp_tpu.models.inference import sample_GP_MCMC, sample_MOGP_MCMC

@@ -7,7 +7,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/repo/.jax_cache")
+from mogp_tpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 __all__ = ["branin", "rosenbrock", "print_table"]
 

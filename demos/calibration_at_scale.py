@@ -7,8 +7,8 @@ stack.
       -> SMC sampling of the joint NROY region
       -> fused on-device implausibility sweep over 10^7 query points
 
-Each stage prints its wall-clock; recorded numbers live in
-``docs/tpu_performance.md`` ("Calibration at scale").  The reference can
+Each stage prints its wall-clock (not yet measured on the GPU; see
+``PERF.md``).  The reference can
 express only fragments of this workflow (``DimensionReduction.py``,
 ``MultiOutputGP.py`` + process pool, ``HistoryMatching.py`` grid sweep);
 posterior sampling and SMC have no counterpart there.
@@ -27,7 +27,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-os.environ.setdefault("MOGP_TPU_COMPILE_CACHE", "/root/repo/.jax_cache")
+from mogp_tpu.config import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import mogp_tpu
 from mogp_tpu import gKDR

@@ -2,7 +2,7 @@
 #
 # Counterpart of the reference's demos/gp_demo.R (which drives
 # mogp_emulator through reticulate); the same pattern works unchanged
-# against the TPU-native framework because the Python API surface is
+# against this framework because the Python API surface is
 # preserved.
 #
 #   install.packages("reticulate")

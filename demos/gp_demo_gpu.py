@@ -1,9 +1,9 @@
-"""Accelerator demo: the reference GPU-demo workflow on TPU.
+"""Accelerator demo: the reference GPU-demo workflow.
 
 Counterpart of ``mogp_emulator/demos/gp_demo_gpu.py``: the reference
-builds a ``GaussianProcessGPU`` and requires CUDA hardware; here the
-GPU classes are aliases of the single TPU-native implementation
-(``mogp_tpu/compat.py``), so the same script runs on TPU, CPU, or
+builds a ``GaussianProcessGPU`` and requires its CUDA extension; here
+the GPU classes are aliases of the single implementation
+(``mogp_tpu/compat.py``), so the same script runs on a GPU, the CPU, or
 anything else JAX targets -- and scales over a device mesh instead of
 one card.
 """

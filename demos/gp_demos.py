@@ -2,7 +2,7 @@
 
 Capability counterpart of the reference's ``demos/gp_demos.py`` (basic
 fit/predict, kernel + nugget choices, priors + mean function with a
-fitted nugget) using the TPU-native API: every fit below is one batched
+fitted nugget) using this framework's API: every fit below is one batched
 L-BFGS program over restarts, and predictions are jitted device
 computations.
 

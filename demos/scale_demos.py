@@ -1,5 +1,5 @@
 """Production-scale workflow demos: the three scale axes of the
-TPU-native framework, each runnable small (this script) and at full
+framework, each runnable small (this script) and at full
 scale (the corresponding scripts in ``benchmarks/``).
 
 1. ``DeviceMICEDesign`` -- the MICE active-learning loop in two

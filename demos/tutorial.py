@@ -2,7 +2,7 @@
 
 Walks the same workflow as the reference tutorial
 (``mogp_emulator/demos/tutorial.py``; docs ``docs/intro/overview.rst``)
-on the projectile problem, using the TPU-native framework:
+on the projectile problem, using this framework:
 
 1. Latin Hypercube experimental design over (log drag, launch velocity)
 2. run the simulator at the design points
@@ -40,7 +40,7 @@ def main():
     # 2-3. fit surrogate with MAP (batched restarts)
     # standardize=True rescales targets to zero mean / unit variance
     # internally: the raw distances span ~1e4 m, which keeps the fit
-    # well-conditioned in float32 (the TPU production dtype)
+    # well-conditioned in float32 (the default accelerator dtype)
     gp = mogp_tpu.GaussianProcess(
         simulation_points, simulation_output, nugget="fit", standardize=True
     )

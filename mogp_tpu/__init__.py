@@ -1,26 +1,23 @@
-"""mogp_tpu: a TPU-native Gaussian-process emulation + UQ framework.
+"""mogp_tpu: a JAX Gaussian-process emulation + UQ framework.
 
-Brand-new JAX/XLA/Pallas re-design with the capabilities of
+JAX/XLA re-design with the capabilities of
 ``mogp-emulator`` (reference: alan-turing-institute/mogp-emulator v0.7.2;
 public API surface mirrors ``mogp_emulator/__init__.py:1-16``):
 
 * GP emulators with marginalized-mean MAP fitting and full posterior
   inference (HMC/NUTS) over hyperparameters,
 * batched multi-output fitting -- outputs x restarts vmapped into one XLA
-  program and sharded over a TPU mesh,
+  program and sharded over a device mesh,
 * the UQ toolchain: experimental design, sequential (MICE) design,
   history matching, gKDR dimension reduction, validation diagnostics.
 """
 
 __version__ = "0.1.0"
 
-# Dtype/precision policy: TPU matmuls default to bfloat16 operand
-# precision, which is fine everywhere EXCEPT the pairwise-distance matmul
-# (catastrophic cancellation; measured: MAP optimization stalls at
-# log-posteriors 4-5 orders of magnitude off the f64 optimum).  That one
-# op requests Precision.HIGHEST explicitly (ops/kernels.py); measured
-# fit quality then matches a HIGHEST-everywhere build exactly, so the
-# rest of the pipeline keeps full-speed MXU passes.
+# Dtype and precision policy: stated once, in mogp_tpu/config.py --
+# float32 by default (float64 under jax_enable_x64), and every contraction
+# derived from the kernel matrix pinned to Precision.HIGHEST
+# (tests/test_precision_audit.py enforces it).
 
 # module-style aliases matching the reference package layout, where
 # ``mogp_emulator.Priors`` / ``mogp_emulator.Kernel`` resolve to submodules

@@ -4,7 +4,7 @@ The reference ships device-specific classes (``GaussianProcessGPU``,
 ``MultiOutputGP_GPU``; soft-import gate ``LibGPGPU.gpu_usable()``)
 alongside the CPU classes.  In this framework the single implementation
 IS the accelerator implementation -- the same jitted programs run on
-CPU or TPU -- so the device-specific names alias the standard classes.
+CPU or GPU -- so the device-specific names alias the standard classes.
 
 Usage for code being migrated from the reference::
 

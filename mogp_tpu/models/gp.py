@@ -1,6 +1,6 @@
 """Gaussian Process emulator: functional core + reference-parity class.
 
-TPU-native re-design of ``mogp_emulator/GaussianProcess.py`` (CUDA
+Re-design of ``mogp_emulator/GaussianProcess.py`` (CUDA
 analogue ``mogp_gpu/src/densegp_gpu.hpp``).  The reference's mutable
 cached-state object (``fit``/``logposterior``/``logpost_deriv`` with
 refit checks, ``GaussianProcess.py:606-782``) dissolves into three pure
@@ -18,8 +18,8 @@ jittable functions over a ``GPData`` pytree:
                      mean-correction term (``GaussianProcess.py:818-927``).
 
 Because the functions are pure and shape-static, ``vmap`` batches them
-over outputs and optimizer restarts, and ``pjit`` shards those batch axes
-over a TPU mesh -- that is the whole multi-output/multi-process story of
+over outputs and optimizer restarts, and a device mesh shards those batch
+axes -- that is the whole multi-output/multi-process story of
 the reference (``MultiOutputGP.py``, ``fitting.py:333-335``) collapsed
 into XLA program structure.
 
@@ -176,15 +176,15 @@ def gp_fit(raw, data: GPData, kernel, nugget_type, reuse_factor=True,
     else:
         nugget = jnp.zeros((), dtype=data.inputs.dtype)
 
-    m = jnp.dot(data.dm, data.mean_mean)
+    from ..ops.linalg import dot_hp, marginal_core, marginal_nlp
+
+    m = dot_hp(data.dm, data.mean_mean)
     K = sigma2 * kernel.kernel_f(data.inputs, data.inputs, corr_raw)
     Kinv, nugget = cholesky_factor(
         K, nugget, nugget_type,
         reuse_factor=reuse_factor, sparse_ladder=sparse_ladder,
         progressive_ok=progressive_ok,
     )
-
-    from ..ops.linalg import dot_hp, marginal_core, marginal_nlp
 
     # One stacked half-solve W = L^-1 [H | (y - m)] provides everything
     # the marginalized-mean math needs (the reference's three separate
@@ -240,15 +240,15 @@ def gp_nlp(raw, data: GPData, kernel, nugget_type, reuse_factor=True,
     else:
         nugget = jnp.zeros((), dtype=data.inputs.dtype)
 
-    m = jnp.dot(data.dm, data.mean_mean)
+    from ..ops.linalg import dot_hp, marginal_core, marginal_nlp
+
+    m = dot_hp(data.dm, data.mean_mean)
     K = sigma2 * kernel.kernel_f(data.inputs, data.inputs, corr_raw)
     Kinv, nugget = cholesky_factor(
         K, nugget, nugget_type,
         reuse_factor=reuse_factor, sparse_ladder=sparse_ladder,
         progressive_ok=progressive_ok,
     )
-
-    from ..ops.linalg import marginal_core, marginal_nlp
 
     core = marginal_core(Kinv, data.dm, data.targets - m, data.mean_inv_cov)
     logpost = marginal_nlp(core, Kinv, data.mean_logdet_cov, data.n_coeff)
@@ -281,9 +281,9 @@ def _gp_predict_impl(
     from ..ops.linalg import dot_hp
 
     mtest = dot_hp(dmtest, artifacts.mean)
-    # prediction is never differentiated: use the fused (Pallas-on-TPU)
-    # kernel-matrix build for the cross covariance
-    Ktest = sigma2 * kernel.kernel_f_predict(data.inputs, testing, corr_raw)
+    # cross covariance: XLA fuses the distance epilogue and the kernel
+    # function into the (n, m) build
+    Ktest = sigma2 * kernel.kernel_f(data.inputs, testing, corr_raw)
 
     mu = mtest + dot_hp(Ktest.T, artifacts.Kinv_t_mean)
 
@@ -291,7 +291,7 @@ def _gp_predict_impl(
         return mu, None
 
     # R = H*^T - H^T K^-1 K* (linalg_utils.py:132-167) via the stored
-    # K^-1 H and symmetry of K: one MXU matmul, no triangular solve.
+    # K^-1 H and symmetry of K: one matmul, no triangular solve.
     # The quadratic forms use half-solves (one lower sweep each) instead
     # of full solves -- triangular solves are the latency-bound op here.
     R = dmtest.T - dot_hp(artifacts.Kinv_dm.T, Ktest)  # (M, m)
@@ -299,7 +299,7 @@ def _gp_predict_impl(
     LAinv_R = artifacts.Ainv.solve_L(R)
 
     if full_cov:
-        sigma_2 = sigma2 * kernel.kernel_f_predict(testing, testing, corr_raw)
+        sigma_2 = sigma2 * kernel.kernel_f(testing, testing, corr_raw)
         if include_nugget and nugget_type != "pivot":
             sigma_2 = sigma_2 + jnp.eye(
                 testing.shape[0], dtype=sigma_2.dtype
@@ -346,7 +346,7 @@ def gp_predict_tiled(
 ):
     """Memory-bounded prediction: ``lax.map`` over fixed-size query tiles.
 
-    TPU-native form of the reference's batched device prediction
+    Form of the reference's batched device prediction
     (``GaussianProcessGPU.py:608-626`` loops ``max_batch_size=2000``
     query batches; ``mogp_gpu/src/densegp_gpu.hpp:786-812`` preallocates
     a ``testing_size`` buffer): the per-tile working set -- the ``(n,
@@ -415,8 +415,8 @@ def _predict_tile_size(n_testing, max_batch_size, n_train=None, n_lanes=1):
     n_train, tile)`` f32 buffers (cross-covariance, half-solves, fusion
     temporaries), kept under ``_PREDICT_TILE_BYTES`` so e.g. a
     64-output sweep does not OOM where a single-output one fits.  An
-    explicit value is rounded up to a multiple of 256 (TPU lane
-    quantum; also collapses near-identical compiled shapes).  Returns 0
+    explicit value is rounded up to a multiple of 256 (collapses
+    near-identical compiled shapes).  Returns 0
     for "do not chunk".
     """
     if max_batch_size is None:
@@ -504,7 +504,7 @@ class GaussianProcess(GaussianProcessBase):
 
         # optional target standardization (beyond the reference): the GP is
         # fit on (y - mean)/std and predictions are mapped back, which
-        # keeps factorizations well-conditioned in float32 on TPU for
+        # keeps factorizations well-conditioned in float32 for
         # badly-scaled simulators.  Hyperparameters and log posteriors
         # then refer to the standardized targets.
         self._standardize = bool(standardize)

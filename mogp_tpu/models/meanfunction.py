@@ -1,6 +1,6 @@
 """Composable symbolic mean functions.
 
-TPU-native re-design of ``mogp_emulator/MeanFunction.py`` (~2 kLoC of
+Re-design of ``mogp_emulator/MeanFunction.py`` (~2 kLoC of
 hand-derived parameter/input derivatives; C++ analogue
 ``mogp_gpu/src/meanfunc.hpp``): the same composable AST surface
 (``MeanSum`` / ``MeanProduct`` / ``MeanPower`` / ``MeanComposite`` built

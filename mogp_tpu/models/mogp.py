@@ -1,6 +1,6 @@
 """Multi-output GP emulator with batched (vmapped) prediction and fitting.
 
-TPU-native re-design of ``mogp_emulator/MultiOutputGP.py`` (GPU analogue
+Re-design of ``mogp_emulator/MultiOutputGP.py`` (GPU analogue
 ``mogp_gpu/src/multioutputgp_gpu.hpp``): the reference distributes its
 independent per-output emulators over a ``multiprocessing.Pool``
 (``MultiOutputGP.py:306-309``) or an OpenMP loop

@@ -1,6 +1,6 @@
 """Prior distributions over GP hyperparameters.
 
-TPU-native re-design of ``mogp_emulator/Priors.py`` (C++ analogue
+Re-design of ``mogp_emulator/Priors.py`` (C++ analogue
 ``mogp_gpu/src/gppriors.hpp``):
 
 * Distribution objects (``NormalPrior``, ``LogNormalPrior``, ``GammaPrior``,
@@ -445,7 +445,8 @@ class MeanPriors:
         """``H b`` or zeros under weak priors (``Priors.py:493-513``)."""
         if self.mean is None:
             return jnp.zeros(dm.shape[0], dtype=dm.dtype)
-        return jnp.dot(dm, jnp.asarray(self.mean, dtype=dm.dtype))
+        return jnp.dot(dm, jnp.asarray(self.mean, dtype=dm.dtype),
+                       precision=jax.lax.Precision.HIGHEST)
 
     def inv_cov(self):
         """``B^-1`` or scalar zero (``Priors.py:515-538``)."""

@@ -1,6 +1,6 @@
 """Nugget-aware Cholesky factorizations, jittable end-to-end.
 
-TPU-native re-design of ``mogp_emulator/linalg/cholesky.py`` (and the CUDA
+Re-design of ``mogp_emulator/linalg/cholesky.py`` (and the CUDA
 adaptive-jitter loop in ``mogp_gpu/src/densegp_gpu.hpp:524-562``):
 
 * ``fixed_cholesky``  -- plain lower Cholesky (``cholesky.py:225``).
@@ -31,27 +31,14 @@ from jax import lax
 from jax.scipy.linalg import solve_triangular
 from jax.scipy.special import gammaln
 
-from ..config import batch_blocked_leaf, blocked_chol_min_n
-from . import blocked
-
-# blocked TRSM leaf for the batched small-n dispatch: 32 measured best
-# for both sweeps at (240, 210, 2-col) on v5e (lower 1.26 ms vs stock
-# 6.02; upper 0.93 ms vs stock 6.08 -- leaf=64 measured 1.54 ms on the
-# lower sweep, so 32 is the shipped leaf); leaves >= 128 at n ~ 210 trip
-# an XLA scoped-vmem overflow in the stock block-inverse the leaves
-# call.  NOTE: ``MOGP_TPU_BATCH_BLOCKED_LEAF`` overrides only the
-# Cholesky leaf (``config.batch_blocked_leaf``); the TRSM leaf is fixed
-# here because its optimum was measured independently.
-_TRSM_LEAF = 32
-
 # Above this n, the adaptive ladder factorizes its jitter candidates
 # SEQUENTIALLY (lax.while_loop, stop at first success) instead of as one
-# batched 6-candidate Cholesky: at large n each candidate is
-# milliseconds of MXU work, so the batched ladder wastes 4-5 full
-# factorizations in the common case where rung 0/1 succeeds; at small n
-# the per-factorization latency dominates and the batched form wins
-# (docs/tpu_performance.md).  Env: MOGP_TPU_PROGRESSIVE_LADDER_MIN_N
-# (0 disables the progressive path).
+# batched 6-candidate Cholesky: at large n each candidate is a large
+# factorization, so the batched ladder wastes 4-5 of them in the common
+# case where rung 0/1 succeeds; at small n per-factorization latency
+# dominates and the batched form wins.  The threshold of 1024 was tuned
+# on the previous accelerator and is not yet measured on the GPU.  Env:
+# MOGP_TPU_PROGRESSIVE_LADDER_MIN_N (0 disables the progressive path).
 import os as _os
 
 _PROGRESSIVE_LADDER_MIN_N = int(
@@ -59,15 +46,6 @@ _PROGRESSIVE_LADDER_MIN_N = int(
 )
 if _PROGRESSIVE_LADDER_MIN_N <= 0:
     _PROGRESSIVE_LADDER_MIN_N = 1 << 62
-
-# upper bound on matrix size for the batched small-n blocked dispatch:
-# the supporting measurements cover the headline batched regime
-# (hundreds of lanes, n ~ 210); beyond a few hundred the trace-time
-# unrolled recursion grows the HLO quadratically in n/leaf and stock
-# XLA was measured to win or tie from n=256 up for SINGLE matrices
-# (see config.blocked_chol_min_n), so sizes above this fall back to
-# stock XLA (or the large-n blocked path when explicitly enabled).
-_BATCH_BLOCKED_MAX_N = 512
 
 __all__ = [
     "ChoFactor",
@@ -79,76 +57,21 @@ __all__ = [
 ]
 
 
-def _use_blocked(n):
-    """Whether the large-n recursive blocked kernels handle size n.
-
-    Read at trace time (per compiled shape); the threshold is static
-    per-process, like the other config flags.
-    """
-    return n >= blocked_chol_min_n()
-
-
-def _batch_leaf(n):
-    """Leaf for the batched small-n blocked dispatch, or 0 when stock
-    XLA should be used at size ``n`` (see ``config.batch_blocked_leaf``).
-
-    Bounded to the measured regime: leaf < n <= ``_BATCH_BLOCKED_MAX_N``
-    (and below the explicit large-n threshold).  Larger matrices use
-    stock XLA, where it was measured to win or tie."""
-    leaf = batch_blocked_leaf()
-    if leaf and leaf < n <= min(_BATCH_BLOCKED_MAX_N, blocked_chol_min_n() - 1):
-        return leaf
-    return 0
-
-
 def _chol(A):
-    """Lower Cholesky; XLA fills the result with NaNs when not PD.
-
-    Two blocked dispatches replace XLA's stock panel schedule
-    (:mod:`mogp_tpu.ops.blocked`): large single matrices above
-    ``blocked_chol_min_n``, and -- the production fit path -- batched
-    small-n lanes, where the recursive form with a small leaf measures
-    ~24% faster than the stock batched factorization on v5e.
-    """
-    n = A.shape[-1]
-    if _use_blocked(n):
-        return blocked.recursive_cholesky(A)
-    leaf = _batch_leaf(n)
-    if leaf:
-        return blocked.recursive_cholesky(A, leaf=leaf)
+    """Lower Cholesky (cuSOLVER on the GPU, LAPACK on the CPU); the
+    factor's lower triangle is NaN when ``A`` is not positive definite,
+    lane by lane in a batch -- the contract the jitter ladder rests on."""
     return lax.linalg.cholesky(A)
 
 
 def _solve_lower(L, b):
-    """Solve ``L x = b`` (lower); blocked TRSM at large n and for the
-    batched small-n dispatch (the stock batched column sweep is
-    latency-bound: 4x slower at (240, 210, 2-col) on v5e)."""
-    vec = b.ndim == L.ndim - 1
-    if vec:
-        b = b[..., None]
-    n = L.shape[-1]
-    if _use_blocked(n):
-        x = blocked.trsm_left_lower(L, b)
-    elif _batch_leaf(n):
-        x = blocked.trsm_left_lower(L, b, leaf=_TRSM_LEAF)
-    else:
-        x = solve_triangular(L, b, lower=True)
-    return x[..., 0] if vec else x
+    """Solve ``L x = b`` (lower triangular)."""
+    return solve_triangular(L, b, lower=True)
 
 
 def _solve_lower_t(L, b):
-    """Solve ``L^T x = b`` (upper sweep), blocked TRSM as above."""
-    vec = b.ndim == L.ndim - 1
-    if vec:
-        b = b[..., None]
-    n = L.shape[-1]
-    if _use_blocked(n):
-        x = blocked.trsm_left_lt(L, b)
-    elif _batch_leaf(n):
-        x = blocked.trsm_left_lt(L, b, leaf=_TRSM_LEAF)
-    else:
-        x = solve_triangular(L.T, b, lower=False)
-    return x[..., 0] if vec else x
+    """Solve ``L^T x = b`` (the upper sweep)."""
+    return solve_triangular(L.T, b, lower=False)
 
 
 class ChoFactor(NamedTuple):
@@ -177,9 +100,8 @@ class ChoFactor(NamedTuple):
         """Complete a full solve from a half-solve: given ``w = solve_L(b)``,
         return ``solve(b)``.  Lets callers batch several right-hand sides
         into ONE stacked triangular solve and finish them together --
-        triangular solves are latency-bound on TPU, so collapsing the
-        2-per-RHS sweeps of repeated ``solve`` calls into one lower+one
-        upper sweep over a stacked RHS is a large win in the hot path."""
+        small triangular solves are latency-bound, so one lower and one
+        upper sweep over a stacked RHS replace two sweeps per RHS."""
         if self.L.shape[0] == 0:
             return jnp.zeros_like(w)
         return _solve_lower_t(self.L, w)
@@ -247,7 +169,7 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
     ALL candidate jitters are factorized in one batched Cholesky on a
     gradient-stopped copy and the first finite one is selected.  The
     extra FLOPs are negligible next to the latency of sequential small
-    factorizations on the MXU; the returned factor is recomputed once
+    factorizations; the returned factor is recomputed once
     with the selected (gradient-stopped) jitter so reverse-mode autodiff
     is exact.
 
@@ -310,10 +232,8 @@ def jit_cholesky(A, maxtries=5, reuse_factor=True, sparse_ladder=False,
         # below is right for small matrices (the extra FLOPs are free
         # next to per-factorization latency, and it vectorizes cleanly
         # under vmapped optimizers), but at n >= ~1024 each candidate is
-        # milliseconds of MXU work and the common case (rung 0 or 1
-        # succeeds) wastes 4-5 full factorizations: measured at n=4096
-        # f32, the fit-artifact program drops ~3x in wall-clock (see
-        # docs/tpu_performance.md roofline).  Static shape gate, so
+        # a large factorization and the common case (rung 0 or 1
+        # succeeds) would waste 4-5 of them.  Static shape gate, so
         # small-n programs are untouched.
         def cond(c):
             k, _, ok = c
@@ -377,7 +297,7 @@ def _chol_of_sum_bwd(L, L_bar):
     # Cholesky reverse rule: with S = Phi(L^T L_bar) (lower triangle,
     # halved diagonal), M_bar = 0.5 * sym(L^-T S L^-1).
     n = L.shape[0]
-    S = jnp.tril(L.T @ L_bar)
+    S = jnp.tril(jnp.matmul(L.T, L_bar, precision=lax.Precision.HIGHEST))
     S = S - 0.5 * jnp.diag(jnp.diag(S))
     W = solve_triangular(L.T, S, lower=False)
     W = solve_triangular(L.T, W.T, lower=False).T
@@ -436,7 +356,7 @@ def pivoted_cholesky(A):
         lkk = jnp.sqrt(jnp.maximum(pivot, eps))
         # left-looking update: subtract contributions of columns < k
         row_k = jnp.where(idx < k, W[k, :], 0.0)
-        col = (W[:, k] - W @ row_k) / lkk
+        col = (W[:, k] - jnp.dot(W, row_k, precision=lax.Precision.HIGHEST)) / lkk
         newcol = jnp.where(idx == k, lkk, jnp.where(idx > k, col, W[:, k]))
         W = jnp.where(active, W.at[:, k].set(newcol), W)
         d = jnp.where(active, jnp.where(idx > k, d - col**2, d), d)

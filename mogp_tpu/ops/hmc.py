@@ -2,9 +2,9 @@
 
 The reference framework stops at MAP point estimates (``fitting.py``);
 this module supplies full posterior inference over GP hyperparameters --
-the headline capability upgrade of the TPU-native framework
-(BASELINE.json north star: "NUTS/HMC with vectorized log-prob + leapfrog
-kernels ... chains sharded across a multi-host TPU pod slice").
+the headline capability upgrade of this framework (BASELINE.json north
+star: "NUTS/HMC with vectorized log-prob + leapfrog kernels ... chains
+sharded across devices").
 
 Design:
 
@@ -497,14 +497,11 @@ def sample_nuts(
 # ---------------------------------------------------------------------------
 #
 # A single `sample_nuts` program runs the WHOLE chain in one XLA
-# execution.  For many chains x many iterations that one dispatch can run
-# for minutes, which the TPU runtime's execution watchdog treats as a
-# fault (observed: a 64-chain, 400-iteration GP-posterior run crashes the
-# worker, while 8 chains complete).  The segmented API below carries the
-# exact warmup/sampling state across fixed-size `lax.scan` segments so a
-# host loop can bound per-dispatch wall-clock; the composed chain is
-# IDENTICAL to the single-program one (same kernel, same dual-averaging /
-# Welford state, same key stream).
+# execution.  The segmented API below carries the exact warmup/sampling
+# state across fixed-size `lax.scan` segments, so a host loop can bound
+# per-dispatch wall-clock and checkpoint between segments; the composed
+# chain is IDENTICAL to the single-program one (same kernel, same dual-
+# averaging / Welford state, same key stream).
 
 
 class NUTSWarmupCarry(NamedTuple):

@@ -1,11 +1,11 @@
 """Stationary covariance kernels as pure, jittable functions.
 
-TPU-native re-design of the reference kernel module
-(``mogp_emulator/Kernel.py``; CUDA analogue ``mogp_gpu/src/kernel.cu``):
+Re-design of the reference kernel module (``mogp_emulator/Kernel.py``;
+CUDA analogue ``mogp_gpu/src/kernel.cu``):
 
 * The scaled squared distance is computed in *matmul form*
-  ``r2 = |z1|^2 + |z2|^2 - 2 z1 z2^T`` with ``z = x * exp(theta/2)`` so the
-  O(n*m*D) work lands on the MXU instead of the VPU (the reference
+  ``r2 = |z1|^2 + |z2|^2 - 2 z1 z2^T`` with ``z = x * exp(theta/2)``, one
+  matrix product that XLA fuses with the kernel function (the reference
   broadcasts differences, ``Kernel.py:444-480``; the CUDA backend uses a
   hand-written thread grid, ``kernel.cu:170-178``).
 * Gradients/Hessians of the kernel with respect to the raw
@@ -39,7 +39,7 @@ __all__ = [
 
 
 # ---------------------------------------------------------------------------
-# Kernel functions of squared distance (VPU element-wise work)
+# Kernel functions of squared distance (element-wise work)
 # ---------------------------------------------------------------------------
 
 def sqexp(r2):
@@ -69,15 +69,15 @@ _BASE_FNS = {"sqexp": sqexp, "mat52": mat52}
 
 
 # ---------------------------------------------------------------------------
-# Scaled squared distances (MXU matmul work)
+# Scaled squared distances (matmul work)
 # ---------------------------------------------------------------------------
 
-def squared_distance(x1, x2, exp_theta):
+def squared_distance(x1, x2, exp_theta, symmetric=False):
     """All-pairs scaled squared Euclidean distance, in matmul form.
 
     ``r2[i, j] = sum_d exp_theta[d] * (x1[i, d] - x2[j, d])**2`` computed as
     ``|z1|^2 + |z2|^2 - 2 z1 z2^T`` with ``z = x * sqrt(exp_theta)`` so the
-    dominant cost is a single MXU matmul.  Values are clamped at zero to
+    dominant cost is a single matmul.  Values are clamped at zero to
     guard against cancellation error.
 
     Reference semantics: ``Kernel.py:444-480`` (``StationaryKernel.calc_r2``).
@@ -85,6 +85,8 @@ def squared_distance(x1, x2, exp_theta):
     :param x1: ``(n1, D)`` input array.
     :param x2: ``(n2, D)`` input array.
     :param exp_theta: ``(D,)`` or scalar per-dimension scale ``exp(theta)``.
+    :param symmetric: ``x1`` and ``x2`` are the same points, so the
+        diagonal is exactly zero.
     :returns: ``(n1, n2)`` matrix of scaled squared distances.
     """
     scale = jnp.sqrt(exp_theta)
@@ -92,15 +94,20 @@ def squared_distance(x1, x2, exp_theta):
     z2 = x2 * scale
     sq1 = jnp.sum(z1 * z1, axis=-1)
     sq2 = jnp.sum(z2 * z2, axis=-1)
-    # full operand precision: with the TPU default (bf16 passes) the
-    # cancellation in ||z1||^2 + ||z2||^2 - 2 z1.z2 leaves ~2 digits,
-    # which destroys the kernel matrix conditioning downstream
+    # full operand precision: in TF32 (the GPU's default for float32
+    # products) the cancellation in ||z1||^2 + ||z2||^2 - 2 z1.z2 leaves
+    # ~2 digits, which destroys the kernel matrix conditioning downstream
     cross = jnp.dot(
         z1, z2.T,
         preferred_element_type=z1.dtype,
         precision=jax.lax.Precision.HIGHEST,
     )
     r2 = sq1[:, None] + sq2[None, :] - 2.0 * cross
+    if symmetric:
+        # the matmul form leaves rounding of order eps * |z|^2 where the
+        # true value is 0; at short correlation lengths |z|^2 is large and
+        # float32 K(x, x) lost ~1e-3 of its diagonal (NLP off by ~1e-3)
+        r2 = jnp.where(jnp.eye(r2.shape[0], dtype=bool), 0.0, r2)
     return jnp.maximum(r2, 0.0)
 
 
@@ -161,6 +168,7 @@ class KernelBase:
         Matches ``KernelBase.kernel_f`` (``Kernel.py:99-132``) for the
         respective concrete kernel class.
         """
+        symmetric = x1 is x2
         x1, x2, params = self._coerce(x1, x2, params)
         base_fn = _BASE_FNS[self.base]
         if self.form == "product":
@@ -169,32 +177,8 @@ class KernelBase:
             exp_theta = jnp.exp(params[0])
         else:
             exp_theta = jnp.exp(params)
-        return base_fn(squared_distance(x1, x2, exp_theta))
-
-    def kernel_f_predict(self, x1, x2, params):
-        """Kernel matrix for NON-differentiated paths (prediction sweeps).
-
-        Same values as :meth:`kernel_f`, but stationary/uniform SqExp and
-        Matern-5/2 dispatch to the fused Pallas tile kernel on TPU
-        (``ops/pallas_kernels.py``; replaces the reference's CUDA
-        ``cov_batch_gpu`` grid, ``mogp_gpu/src/kernel.cu:170-178``): the
-        distance matmul and kernel function are fused per (128, 128)
-        VMEM tile, so the (n, m) r2 intermediate never visits HBM.  The
-        Pallas call defines no VJP -- prediction is never differentiated
-        in this framework; differentiated paths use :meth:`kernel_f`.
-        """
-        if self.form == "product":
-            return self.kernel_f(x1, x2, params)
-        x1, x2, params = self._coerce(x1, x2, params)
-        from .pallas_kernels import kernel_matrix
-
-        if self.form == "uniform":
-            exp_theta = jnp.exp(params[0]) * jnp.ones(
-                x1.shape[1], dtype=params.dtype
-            )
-        else:
-            exp_theta = jnp.exp(params)
-        return kernel_matrix(x1, x2, exp_theta, base=self.base)
+        return base_fn(squared_distance(x1, x2, exp_theta,
+                                        symmetric=symmetric))
 
     def calc_r2(self, x1, x2, params):
         """Scaled squared distances (``Kernel.py:444-480`` /

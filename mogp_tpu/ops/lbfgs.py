@@ -1,11 +1,11 @@
 """Batched on-device L-BFGS.
 
-TPU-native replacement for the reference's optimizer drivers: scipy
+Replacement for the reference's optimizer drivers: scipy
 ``minimize(method="L-BFGS-B")`` per restart (``fitting.py:244``) and the
 GPU backend's serial dlib BFGS (``mogp_gpu/src/fitting.hpp:91-99``).  The
 whole minimization -- two-loop recursion, line search, convergence tests
 -- is one ``lax.while_loop``, so it can be ``vmap``-ed over an
-(outputs x restarts) axis and ``pjit``-ed over a TPU mesh: every restart
+(outputs x restarts) axis and sharded over a device mesh: every restart
 of every output advances in lockstep inside a single XLA program instead
 of a process pool (``fitting.py:333-335``).
 
@@ -31,9 +31,9 @@ from jax import lax
 __all__ = ["LBFGSResult", "lbfgs_minimize"]
 
 def _dot(a, b):
-    # full-f32 dot: these are tiny (P,) contractions, but on TPU the
-    # default matmul precision is bf16-input and the curvature tests
-    # (s.y, y.y, g.d) deserve full mantissas
+    # full-f32 dot: these are tiny (P,) contractions, but the GPU's
+    # default float32 product is TF32 and the curvature tests (s.y, y.y,
+    # g.d) deserve full mantissas
     return jnp.dot(a, b, precision=jax.lax.Precision.HIGHEST)
 
 
@@ -46,10 +46,8 @@ def _dot(a, b):
 # every lane for it within one (measured on the tsunami-shape batch:
 # race phase A from random prior starts was ~85% of fit wall-clock,
 # ~3x phase B's per-lane-iteration cost, almost entirely batch-max
-# trial ladders).  Shipped default 2 from the same-session cap sweep in
-# docs/tpu_performance.md (12-13 fits/s vs 5.4-5.6 for the old
-# terminate-on-failure design, race-vs-strict gap within the 0.01 gate;
-# cap=1 measured faster still but with a worse per-output max gap).
+# trial ladders).  Default 2 was tuned on the previous accelerator and is
+# not yet measured on the GPU.
 _DEF_MAX_LS = int(os.environ.get("MOGP_TPU_MAX_LINESEARCH", "2"))
 
 
@@ -178,7 +176,7 @@ def lbfgs_minimize(
         framework's objectives the gradient is nearly free on top of the
         forward pass (the custom-VJP Cholesky factor reuse makes the
         pullback a handful of triangular solves with no new
-        factorization -- measured ~1.1x a value-only eval on TPU), so
+        factorization), so
         carrying the gradient through the trial loop and skipping the
         separate value-and-grad at the accepted point halves the
         objective evaluations of the common one-trial iteration.  The
@@ -229,10 +227,8 @@ def lbfgs_minimize(
             # clamp is deliberately loose: under vmap every lane pays the
             # batch-max trial count, and a lane whose acceptable step is
             # 100x below the trial needs 7 trials at a 0.1 floor but only
-            # 2-3 at 0.02.  Measured on the tsunami-shape batch (v5e,
-            # same session): 0.1 -> 0.02 is +18% fit throughput at an
-            # unchanged race-vs-strict quality gap (+0.0097); 0.01
-            # measured no further gain.
+            # 2-3 at 0.02.  Tuned on the previous accelerator; not yet
+            # measured on the GPU.
             denom = 2.0 * (f_new - f - gd * t)
             t_q = -gd * t * t / jnp.where(denom == 0.0, 1.0, denom)
             t_next = jnp.clip(t_q, 0.02 * t, 0.5 * t)
@@ -241,10 +237,8 @@ def lbfgs_minimize(
             # region in few trials.  With both shrink rates, 10 trials
             # reach step reductions of 1e-10..1e-17, far below anything
             # a finite-precision objective can use, so the default
-            # ``max_linesearch=10`` loses nothing: measured on the
-            # tsunami-shape batch (v5e, same session) 25->10 trials +
-            # 0.1x non-finite shrink is +9.7% fit throughput with
-            # bit-identical final optima.
+            # ``max_linesearch=10`` loses nothing (25 -> 10 trials gave
+            # bit-identical final optima on the tsunami-shape batch).
             t_next = jnp.where(jnp.isfinite(f_new), t_next, 0.1 * t)
             return (t_next, ls_it + 1, ok, xt, ft, gt, t_acc)
 

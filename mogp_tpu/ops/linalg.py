@@ -1,6 +1,6 @@
 """Marginalized-mean GP linear algebra (the ``linalg_utils`` layer).
 
-TPU-native re-design of ``mogp_emulator/linalg/linalg_utils.py``: instead
+Re-design of ``mogp_emulator/linalg/linalg_utils.py``: instead
 of the reference's separate ``calc_Ainv`` / ``calc_mean_params`` /
 ``calc_R`` solves (``linalg_utils.py:5,96,132``; three K^-1 solves per
 objective evaluation), everything the marginalized-mean math needs comes
@@ -8,7 +8,7 @@ from ONE stacked lower-triangular half-solve
 
     W = L^-1 [H | (y - m)]
 
-because triangular solves are latency-bound on TPU and the stacked RHS
+because small triangular solves are latency-bound and the stacked RHS
 amortizes both sweeps.  ``calc_A_deriv`` / ``logdet_deriv``
 (``linalg_utils.py:42,170``) have no counterpart: gradients come from
 ``jax.grad`` of the log posterior.
@@ -27,15 +27,14 @@ from .cholesky import ChoFactor, fixed_cholesky
 
 __all__ = ["MarginalCore", "marginal_core", "marginal_nlp", "dot_hp"]
 
-# Full-f32 dot for the mean-marginalization algebra.  On TPU the default
-# matmul precision is bf16-input: harmless for the kernel-matrix build
-# (guarded separately with HIGHEST in ops/kernels.py) and for zero-mean
-# GPs (H is empty), but catastrophic for A = Wh^T Wh when the design
-# matrix is non-trivial and K is near-singular -- Wh = L^-1 H carries
-# K^-1-amplified entries, and an 8-bit mantissa turns the mean
-# coefficients into garbage (observed: linear-mean tsunami holdout
-# rmse/std 5e4 on TPU vs 0.02 on CPU-f32).  These dots are tiny (n x M,
-# M <= ~16) next to the factorization, so HIGHEST costs nothing.
+# Full-f32 dot for everything derived from K^-1 (the precision rule in
+# mogp_tpu/config.py).  A reduced-precision product (TF32 on the GPU) is
+# catastrophic for A = Wh^T Wh when the design matrix is non-trivial and
+# K is near-singular -- Wh = L^-1 H carries K^-1-amplified entries, and a
+# short mantissa turns the mean coefficients into garbage (observed with
+# bf16 products: linear-mean tsunami holdout rmse/std 5e4 vs 0.02 at
+# full f32).  These dots are tiny (n x M, M <= ~16) next to the
+# factorization, so HIGHEST costs nothing.
 dot_hp = partial(jnp.dot, precision=jax.lax.Precision.HIGHEST)
 
 

@@ -10,13 +10,16 @@ __all__ = ["auto_mesh", "shard_leading", "replicate", "init_distributed"]
 
 def init_distributed(coordinator_address=None, num_processes=None,
                      process_id=None):
-    """Initialize multi-host JAX for pod-slice runs.
+    """Initialize multi-process JAX (several hosts, or one process per
+    GPU).
 
     Thin convenience over ``jax.distributed.initialize``: call once per
-    host before building meshes; ``auto_mesh`` then spans the global
-    device set, and the sharded fit/predict/MCMC paths run over ICI+DCN
-    unchanged.  Arguments default to the standard TPU environment
-    auto-detection.
+    process before building meshes; ``auto_mesh`` then spans the global
+    device set, and the sharded fit/predict/MCMC paths run unchanged.
+    Nothing on a plain GPU host tells JAX of a cluster, so pass all three
+    arguments there (e.g. ``coordinator_address="localhost:<port>"``);
+    they default only where a cluster environment JAX recognizes (e.g.
+    SLURM) supplies them.
     """
     import jax
 

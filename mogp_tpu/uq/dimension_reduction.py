@@ -1,6 +1,6 @@
 """Dimension reduction by gradient kernel dimension reduction (gKDR).
 
-TPU-native re-design of ``mogp_emulator/DimensionReduction.py`` (gKDR of
+Re-design of ``mogp_emulator/DimensionReduction.py`` (gKDR of
 Fukumizu & Leng).  The O(N^2 M) kernel-gradient contraction that builds
 the ``R`` matrix -- a Python loop over N in the reference
 (``DimensionReduction.py:218-223``) -- is a single jitted einsum
@@ -71,8 +71,9 @@ def _gkdr_projection(X, Y, SGX2, SGY2, EPS):
     # H[i,j,m] = (X[i,m] - X[j,m]) / SGX2 * Kx[i,j]
     H = (X[:, None, :] - X[None, :, :]) / SGX2 * Kx[:, :, None]
     # R = sum_i H[i]^T (F H[i])  ->  einsum over the contracted axes
-    FH = jnp.einsum("kl,ljm->kjm", F, H)
-    R = jnp.einsum("kjm,kjn->mn", H, FH)
+    hi = jax.lax.Precision.HIGHEST
+    FH = jnp.einsum("kl,ljm->kjm", F, H, precision=hi)
+    R = jnp.einsum("kjm,kjn->mn", H, FH, precision=hi)
 
     evals, V = jnp.linalg.eigh(R)
     order = jnp.argsort(evals)[::-1]

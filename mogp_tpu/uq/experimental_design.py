@@ -1,6 +1,6 @@
 """One-shot experimental designs (Monte Carlo / Latin Hypercube / MaxiMin).
 
-TPU-native re-design of ``mogp_emulator/ExperimentalDesign.py``: the API
+Re-design of ``mogp_emulator/ExperimentalDesign.py``: the API
 (PPF-based parameter specification with the same five input conventions,
 ``ExperimentalDesign.py:32-188``) is preserved, but sampling is
 vectorized:
@@ -235,6 +235,15 @@ class LatinHypercubeDesign(ExperimentalDesign):
         return samples
 
 
+def _use_device_scorer():
+    """MaxiMin scoring runs on the device when an accelerator is active,
+    or when the native host scorer cannot be built."""
+    from .. import native
+    from ..compat import gpu_usable
+
+    return gpu_usable() or not native.native_usable()
+
+
 @jax.jit
 def _min_pdist_batch(candidates):
     """Minimum pairwise Euclidean distance per candidate design.
@@ -244,7 +253,10 @@ def _min_pdist_batch(candidates):
     (``ExperimentalDesign.py:663-668``).
     """
     sq = jnp.sum(candidates**2, axis=-1)
-    cross = jnp.einsum("tnd,tmd->tnm", candidates, candidates)
+    # full float32 operands: the distance form cancels (see
+    # ops.kernels.squared_distance)
+    cross = jnp.einsum("tnd,tmd->tnm", candidates, candidates,
+                       precision=jax.lax.Precision.HIGHEST)
     d2 = sq[:, :, None] + sq[:, None, :] - 2.0 * cross
     n = candidates.shape[1]
     eye = jnp.eye(n, dtype=bool)
@@ -283,21 +295,19 @@ class MaxiMinLHC(LatinHypercubeDesign):
     def _score_candidates(candidates):
         """Min pairwise distance per candidate design.
 
-        Device path: one batched program (chunked so the (chunk, n, n)
-        distance tensor stays bounded in memory).  Host fallback: the
-        native OpenMP scorer (``mogp_tpu.native.maximin_score``) -- on
-        CPU backends it skips the per-chunk dispatch overhead of the
-        jitted program, mirroring the reference's host-side ``pdist``
-        loop (``ExperimentalDesign.py:663-668``) at full thread count.
+        Device path (see :func:`_use_device_scorer`): one batched
+        program, chunked so the (chunk, n, n) distance tensor stays
+        bounded in memory.  Host path: the native OpenMP scorer
+        (``mogp_tpu.native.maximin_score``), which on a CPU backend skips
+        the per-chunk dispatch overhead of the jitted program, mirroring
+        the reference's host-side ``pdist`` loop
+        (``ExperimentalDesign.py:663-668``) at full thread count.
         """
-        from ..config import is_tpu
-
         n_tries, n_samples, _ = candidates.shape
-        if not is_tpu():
+        if not _use_device_scorer():
             from .. import native
 
-            if native.native_usable():
-                return native.maximin_score(candidates)
+            return native.maximin_score(candidates)
         max_elems = 1 << 26
         chunk = max(1, int(max_elems // max(n_samples * n_samples, 1)))
         min_dists = np.empty(n_tries)

@@ -86,7 +86,7 @@ def masked_gp_nlp(raw, data, mask, kernel, nugget_type, weak_mean=True,
         jitter_mask=mask, progressive_ok=False,
     )
 
-    m = jnp.dot(data.dm, data.mean_mean)
+    m = jnp.dot(data.dm, data.mean_mean, precision=jax.lax.Precision.HIGHEST)
     resid = mask * (data.targets - m)
     dm_m = mask[:, None] * data.dm
     core = marginal_core(Kinv, dm_m, resid, data.mean_inv_cov)
@@ -262,8 +262,7 @@ class DeviceMICEDesign(MICEDesign):
     * ``cand_block`` controls the candidate-GP block size for very large
       candidate sets (default: dense up to 4096 candidates, 4096-blocks
       beyond -- block-local LOO approximation).  Measured quality of the
-      approximation (``tools/loo_block_experiment.py``; table in
-      ``docs/tpu_performance.md``): at the production 4096-block the
+      approximation: at the production 4096-block the
       median relative score deviation vs the dense joint-candidate
       criterion is ~0.2% and the argmax regret (dense-criterion loss of
       the block-locally selected candidate) is 0; deviation shrinks with

@@ -1,6 +1,6 @@
 """Sequential (active-learning) experimental design, including MICE.
 
-TPU-native re-design of ``mogp_emulator/SequentialDesign.py``:
+Re-design of ``mogp_emulator/SequentialDesign.py``:
 
 * ``SequentialDesign`` keeps the reference's public workflow (generate
   initial design, iterate get-next-point/set-next-target, save/load

@@ -2,8 +2,8 @@
 
 The reference's only persistence is ``SequentialDesign.save_design``
 (``SequentialDesign.py:110-186``) and pickling-by-reinit for the GPU
-class.  For a framework running long NUTS/SMC sweeps on preemptible TPU
-slices, first-class checkpointing matters (SURVEY §5): this module
+class.  For a framework running long NUTS/SMC sweeps on preemptible
+machines, first-class checkpointing matters (SURVEY §5): this module
 provides simple, dependency-free ``.npz`` checkpoints for
 
 * ``GaussianProcess`` / ``MultiOutputGP`` — data + configuration +

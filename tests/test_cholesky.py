@@ -28,15 +28,23 @@ def make_spd(n, seed=0, jitter=0.0):
     return A
 
 
-def test_fixed_cholesky():
-    A = make_spd(6)
+@pytest.mark.parametrize("n", [3, 6, 8, 21, 64, 130, 300, 517])
+def test_fixed_cholesky(n):
+    A = make_spd(n)
     L = np.asarray(fixed_cholesky(jnp.asarray(A)))
-    assert_allclose(L, scipy.linalg.cholesky(A, lower=True), rtol=1e-10)
+    assert_allclose(L, scipy.linalg.cholesky(A, lower=True), rtol=1e-10,
+                    atol=1e-12 * n)
+    assert_allclose(np.triu(L, 1), 0.0)
 
 
-def test_chofactor_solve_and_logdet():
-    A = make_spd(6, seed=1)
-    b = np.random.RandomState(2).randn(6)
+@pytest.mark.parametrize("n", [6, 21, 130, 300])
+def test_chofactor_solve_and_logdet(n):
+    """Full solve, lower half-solve and the upper sweep that completes it
+    (vector and 2-column right-hand sides) against LAPACK."""
+    A = make_spd(n, seed=1)
+    rng = np.random.RandomState(2)
+    b = rng.randn(n)
+    B = rng.randn(n, 2)
     f = ChoFactor(fixed_cholesky(jnp.asarray(A)))
     assert_allclose(np.asarray(f.solve(jnp.asarray(b))), np.linalg.solve(A, b), rtol=1e-9)
     assert_allclose(float(f.logdet()), np.linalg.slogdet(A)[1], rtol=1e-10)
@@ -46,6 +54,47 @@ def test_chofactor_solve_and_logdet():
         scipy.linalg.solve_triangular(L, b, lower=True),
         rtol=1e-9,
     )
+    W = f.solve_L(jnp.asarray(B))
+    assert_allclose(np.asarray(W), scipy.linalg.solve_triangular(L, B, lower=True),
+                    rtol=1e-9, atol=1e-12)
+    assert_allclose(np.asarray(f.solve_from_half(W)), np.linalg.solve(A, B),
+                    rtol=1e-8, atol=1e-12)
+
+
+def test_fixed_cholesky_batched():
+    """The jitter ladder factorizes a (candidates, n, n) batch in one call."""
+    A = np.stack([make_spd(96, seed=s) for s in range(4)])
+    L = np.asarray(fixed_cholesky(jnp.asarray(A)))
+    for i in range(4):
+        assert_allclose(L[i], scipy.linalg.cholesky(A[i], lower=True),
+                        rtol=1e-10, atol=1e-12)
+
+
+def test_fixed_cholesky_nan_lane_isolation():
+    """A non-PD lane of a batch factorizes to NaN (its lower triangle) and
+    leaves its neighbours exact -- the contract jit_cholesky's ladder
+    selection rests on."""
+    A = np.stack([make_spd(40, seed=s) for s in range(5)])
+    A[2] -= 1e4 * np.eye(40)
+    L = np.asarray(fixed_cholesky(jnp.asarray(A)))
+    assert np.all(np.isnan(L[2][np.tril_indices(40)]))
+    for i in (0, 1, 3, 4):
+        assert_allclose(L[i], scipy.linalg.cholesky(A[i], lower=True),
+                        rtol=1e-10, atol=1e-12)
+
+
+def test_fixed_cholesky_grad():
+    """d/dA [logdet(A)/2] through the factorization equals A^-1 / 2 (sym)."""
+    import jax
+
+    A = jnp.asarray(make_spd(80))
+
+    def half_logdet(A):
+        return jnp.sum(jnp.log(jnp.diagonal(fixed_cholesky(A))))
+
+    g = np.asarray(jax.grad(half_logdet)(A))
+    expect = 0.5 * np.linalg.inv(np.asarray(A))
+    assert_allclose((g + g.T) / 2, (expect + expect.T) / 2, atol=1e-10)
 
 
 def test_jit_cholesky_no_jitter_needed():

@@ -9,6 +9,7 @@ min-distance property.
 
 import numpy as np
 import pytest
+import scipy.spatial.distance
 import scipy.stats
 from numpy.testing import assert_allclose
 
@@ -177,3 +178,34 @@ def test_maximin_min_distance_at_least_lhc_median():
 def test_maximin_method_name():
     assert "MaxiMin" in MaxiMinLHC(2).get_method() or \
         "Latin" in MaxiMinLHC(2).get_method()
+
+
+def test_maximin_scorer_choice(monkeypatch):
+    """MaxiMin scoring runs on the device whenever an accelerator is
+    active, on the native host scorer on a CPU backend, and on the
+    device when the host scorer cannot be built; both give the same
+    scores."""
+    from mogp_tpu import compat, native
+    from mogp_tpu.uq import experimental_design as ed
+
+    monkeypatch.setattr(native, "native_usable", lambda: True)
+    monkeypatch.setattr(compat, "gpu_usable", lambda: False)
+    assert not ed._use_device_scorer()
+    monkeypatch.setattr(compat, "gpu_usable", lambda: True)
+    assert ed._use_device_scorer()
+    monkeypatch.setattr(compat, "gpu_usable", lambda: False)
+    monkeypatch.setattr(native, "native_usable", lambda: False)
+    assert ed._use_device_scorer()
+
+
+def test_maximin_device_scores_match_host():
+    from mogp_tpu import native
+    from mogp_tpu.uq import experimental_design as ed
+
+    cand = np.random.RandomState(3).uniform(size=(40, 12, 3))
+    dev = np.asarray(ed._min_pdist_batch(cand))
+    ref = np.array([np.min(scipy.spatial.distance.pdist(c)) for c in cand])
+    np.testing.assert_allclose(dev, ref, rtol=1e-10)
+    if native.native_usable():
+        np.testing.assert_allclose(native.maximin_score(cand), ref,
+                                   rtol=1e-10)

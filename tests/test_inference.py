@@ -289,16 +289,31 @@ def test_segmented_nuts_matches_single_program():
                     rtol=1e-6, atol=1e-8)
 
 
-def test_auto_segment_policy():
-    from mogp_tpu.models.inference import _NUTS_SEG_BUDGET, _auto_segment
+def test_auto_segment_policy(monkeypatch):
+    """Runs are one program whatever their size (64 chains x 400
+    iterations included); segments are used only when asked for, by
+    ``segment=`` or a checkpoint path."""
+    import mogp_tpu.models.inference as inf
 
-    # small runs stay single-program
-    assert _auto_segment(8, 400) is None  # the known-good point
-    assert _auto_segment(4, 200) is None
-    # 64 chains x 400 iterations (the observed worker-fault config) split
-    seg = _auto_segment(64, 400)
-    assert seg is not None and seg * 64 <= _NUTS_SEG_BUDGET + 64 * seg % 64
-    assert _auto_segment(64, 400) * (-(-400 // _auto_segment(64, 400))) >= 400
+    calls = []
+
+    def single(*args, **kwargs):
+        calls.append("single")
+        return "samples", "infos"
+
+    def no_segments(*args, **kwargs):
+        raise AssertionError("segmented path taken")
+
+    monkeypatch.setattr(inf, "_nuts_single_program", single)
+    monkeypatch.setattr(inf, "_nuts_init", no_segments)
+    q0 = jnp.zeros((1, 64, 3))
+    keys = jnp.zeros((1, 64, 2), jnp.uint32)
+    out = inf._run_nuts_chains(None, q0, keys, None, "fit", 400, 400, 8,
+                               0.8)
+    assert out == ("samples", "infos") and calls == ["single"]
+    with pytest.raises(AssertionError, match="segmented path"):
+        inf._run_nuts_chains(None, q0, keys, None, "fit", 400, 400, 8, 0.8,
+                             segment=100)
 
 
 def test_nuts_checkpoint_resume(tmp_path, monkeypatch):

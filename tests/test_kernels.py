@@ -140,3 +140,43 @@ def test_calc_r2():
     r2p = np.asarray(ProductMat52().calc_r2(X1, X2, PARAMS))
     assert r2p.shape == (3, len(X1), len(X2))
     assert_allclose(r2p.sum(axis=0), oracle_r2(X1, X2, PARAMS), rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("kernel,oracle", [(SquaredExponential(), oracle_sqexp),
+                                           (Matern52(), oracle_mat52)])
+@pytest.mark.parametrize("shape", [(50, 37, 3), (130, 200, 14), (5, 5, 1)])
+def test_kernel_matrix_matmul_form_matches_oracle(kernel, oracle, shape):
+    """The predict-path cross covariance (matmul-form distance, fused by
+    XLA) against the direct-difference oracle at the shapes of the
+    sweep's tiles: ragged, D=14, and D=1."""
+    n, m, D = shape
+    r = np.random.RandomState(n + m + D)
+    x1 = r.uniform(0.0, 1.0, size=(n, D))
+    x2 = r.uniform(0.0, 1.0, size=(m, D))
+    p = r.uniform(-1.0, 1.0, size=D)
+    K = np.asarray(kernel.kernel_f(x1, x2, p))
+    assert K.shape == (n, m)
+    assert_allclose(K, oracle(oracle_r2(x1, x2, p)), rtol=1e-10, atol=1e-12)
+
+
+def test_kernel_matrix_diag_is_one():
+    """Coincident points give r2 = 0 exactly (clamped cancellation), so the
+    kernel diagonal is 1 for both families."""
+    z = np.random.RandomState(3).randn(64, 6)
+    for kernel in (SquaredExponential(), Matern52()):
+        K = np.asarray(kernel.kernel_f(z, z, np.zeros(6)))
+        assert_allclose(np.diag(K), 1.0, atol=1e-12)
+
+
+def test_symmetric_distance_has_exact_zero_diagonal():
+    """K(x, x) gets an exactly zero-distance diagonal even at short
+    correlation lengths, where the matmul form's rounding (of order
+    eps * |z|^2) would otherwise shrink K's diagonal in float32."""
+    import jax.numpy as jnp
+
+    x = jnp.asarray(np.random.RandomState(5).uniform(size=(30, 14)),
+                    jnp.float32)
+    p = jnp.full((14,), 9.4, jnp.float32)
+    K = np.asarray(SquaredExponential().kernel_f(x, x, p))
+    assert np.all(np.diag(K) == 1.0)
+    assert np.max(np.abs(K - np.eye(30))) < 1e-6
